@@ -3,8 +3,8 @@
 The reference's only distribution story is ssh/scp/qsub between hosts
 (SURVEY.md §5.8); here the runtime is a jax.sharding.Mesh: ``dp`` for read
 batches, ``ep`` for index hash shards, ``sp`` for contig-sharded scans.
-Within a slice the collectives ride ICI; across slices DCN — both are
-XLA-inserted, never hand-rolled transports.
+The collectives are XLA-inserted (NCCL between GPUs), never hand-rolled
+transports.
 """
 
 from typing import Dict, Optional

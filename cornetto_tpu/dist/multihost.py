@@ -1,8 +1,7 @@
 """Multi-host runtime initialisation.
 
-On a real pod slice each host calls `initialize()` before building meshes;
-collectives then ride ICI within the slice and DCN across slices, all
-XLA-managed.  In single-host environments this is a no-op, and tests
+On a multi-host cluster each host calls `initialize()` before building
+meshes; the collectives are XLA-managed (NCCL between GPUs).  In single-host environments this is a no-op, and tests
 simulate multi-device execution with virtual CPU devices instead
 (`--xla_force_host_platform_device_count`, see tests/conftest.py).
 """
@@ -17,7 +16,7 @@ def initialize(coordinator_address: Optional[str] = None,
     """Initialise jax.distributed when running multi-process; returns True
     if a distributed runtime was started.  Arguments default from the
     standard env vars (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID) or the TPU metadata auto-detection."""
+    JAX_PROCESS_ID); without them nothing is started."""
     import jax
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")

@@ -13,8 +13,8 @@ gfa2fa (io/gfa.py — the gfatools stage) and the duplex read split
 
 Device discovery: the reference's nvidia-smi polling loop becomes a
 `device_query` template whose stdout names the accelerator (or a static
-config["device"]); on a TPU host there is nothing to poll — jax owns the
-chip — so the default is "auto".
+config["device"]); the default is "auto", which polls nothing — jax owns
+the accelerator.
 """
 
 import glob

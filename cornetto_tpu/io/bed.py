@@ -67,27 +67,21 @@ class DepthArrays:
         self.mean_mq_depth: int = 0
 
 
-def _parse_bedgraph_native(path: str):
-    """C-kernel parse over an mmap'd file (zero-copy, multi-threaded):
-    returns (names, starts, ends, depths, contig row bounds) or None if the
-    native library is unavailable."""
+def _parse_bedgraph_native(data):
+    """C-kernel parse (multi-threaded) over a bytes-like buffer — an mmap'd
+    file or inflated gzip bytes: returns (names, starts, ends, depths,
+    contig row bounds) or None if the native library is unavailable."""
     import ctypes
-    import mmap
     import os as _os
     from cornetto_tpu import native
     lib = native.load("bedgraph_native", "bedgraph_native.c")
     if lib is None:
         return None
     lib.bg_parse.restype = ctypes.c_int64
-    size = _os.path.getsize(path)
-    if size == 0:
-        return [], np.empty(0, np.int64), np.empty(0, np.int64), \
-            np.empty(0, np.int64), np.empty(1, np.int64)
-    with open(path, "rb") as f:
-        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
-    view = np.frombuffer(mm, dtype=np.uint8)
+    size = len(data)
+    view = np.frombuffer(data, dtype=np.uint8)
     n_lines = int(np.count_nonzero(view == 10))
-    if size and mm[size - 1:size] != b"\n":
+    if size and view[size - 1] != 10:
         n_lines += 1
     if n_lines == 0:
         return [], np.empty(0, np.int64), np.empty(0, np.int64), \
@@ -113,36 +107,40 @@ def _parse_bedgraph_native(path: str):
                   "%d." % (-rows - 1))
         sys.exit(1)
     nc = n_ctg.value
-    names = [bytes(mm[int(ctg_off[k]):int(ctg_off[k] + ctg_len[k])]).decode()
-             for k in range(nc)]
+    names = [bytes(data[int(ctg_off[k]):int(ctg_off[k] + ctg_len[k])])
+             .decode() for k in range(nc)]
     bounds = np.append(ctg_row[:nc], rows)
     return names, starts[:rows], ends[:rows], depths[:rows], bounds
 
 
-def _parse_bedgraph_pandas(data: bytes):
-    import io as _io
-    import pandas as pd
-    df = pd.read_csv(_io.BytesIO(data), sep="\t", header=None,
-                     names=["c", "s", "e", "d"],
-                     dtype={"c": "object", "s": np.int64,
-                            "e": np.int64, "d": np.int64})
-    chroms = df["c"].to_numpy()
-    starts = df["s"].to_numpy()
-    ends = df["e"].to_numpy()
-    depths = df["d"].to_numpy()
-    change = np.empty(len(chroms), dtype=bool)
-    if len(chroms):
-        change[0] = True
-        change[1:] = chroms[1:] != chroms[:-1]
-    rows = np.flatnonzero(change)
-    names = [str(chroms[i]) for i in rows]
-    bounds = np.append(rows, len(chroms))
+def _parse_bedgraph_py(data: bytes):
+    """Python/NumPy twin of the native parse, for hosts without a C
+    compiler."""
+    lines = data.split(b"\n")
+    if lines and not lines[-1]:
+        lines.pop()
+    cols = []
+    for i, ln in enumerate(lines):
+        f = ln.split(b"\t")
+        if len(f) < 4:
+            log.error("The depth files should have 4 columns. Had fewer at "
+                      "row %d." % i)
+            sys.exit(1)
+        cols.append(f[:4])
+    chroms = [c[0] for c in cols]
+    starts = np.array([int(c[1]) for c in cols], dtype=np.int64)
+    ends = np.array([int(c[2]) for c in cols], dtype=np.int64)
+    depths = np.array([int(c[3]) for c in cols], dtype=np.int64)
+    rows = [i for i in range(len(chroms))
+            if i == 0 or chroms[i] != chroms[i - 1]]
+    names = [chroms[i].decode() for i in rows]
+    bounds = np.append(np.array(rows, dtype=np.int64), len(chroms))
     return names, starts, ends, depths, bounds
 
 
 def _parse_bedgraph_numpy(path: str, ranged: bool = False):
-    """Parse a 4-column 1-bp bedgraph (native C kernel when available,
-    pandas otherwise).
+    """Parse a 4-column 1-bp bedgraph, plain or gzipped (native C kernel
+    when available, a Python twin otherwise).
 
     Returns (names_in_order, per-contig start arrays, per-contig depth
     arrays) with the reference's validation: 4 columns, end=start+1,
@@ -158,17 +156,17 @@ def _parse_bedgraph_numpy(path: str, ranged: bool = False):
         import gzip
         with gzip.open(path, "rb") as fp:
             data = fp.read()
-        parsed = _parse_bedgraph_pandas(data) if data else None
-        if parsed is None:
-            return [], [], []
-    else:
-        parsed = _parse_bedgraph_native(path)
-    if parsed is None:
+    elif os.path.getsize(path):
+        import mmap
         with open(path, "rb") as fp:
-            data = fp.read()
-        if not data:
-            return [], [], []
-        parsed = _parse_bedgraph_pandas(data)
+            data = mmap.mmap(fp.fileno(), 0, access=mmap.ACCESS_READ)
+    else:
+        data = b""
+    if not data:
+        return [], [], []
+    parsed = _parse_bedgraph_native(data)
+    if parsed is None:
+        parsed = _parse_bedgraph_py(bytes(data))
     names, starts, ends, depths, bounds = parsed
     if not ranged and not np.all(starts + 1 == ends):
         bad = int(np.argmin(starts + 1 == ends))

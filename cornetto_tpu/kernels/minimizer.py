@@ -5,10 +5,10 @@ readfish+minimap2 for real-time accept/reject decisions
 (reference: docs/protocol.md:137-161 hands this to readfish).  Reads are
 2-bit packed, k-mers built with shifted ORs, canonicalised, hashed with an
 invertible finalizer, and windowed minima taken at stride w — all static
-shapes, all VPU-friendly elementwise ops, so XLA fuses the entire extraction
-into a handful of kernels.
+shapes, all elementwise ops, so XLA fuses the entire extraction into a
+handful of kernels.
 
-Design notes (TPU-first):
+Design notes:
 - dense stride-w sampling (one minimizer per w-window) instead of the
   classic (w,k) scheme keeps every shape static under jit;
 - the k-mer build is O(k) shifted ors on uint32 lanes; sliding minima use
@@ -129,8 +129,8 @@ def read_minimizers_jax(codes, k: int = DEFAULT_K, w: int = DEFAULT_W,
     hashes (B, M) uint32, valid (B, M) bool), M = (L-k+1)//w, static.
 
     The k-mer build uses log2(k) doubling steps (width-1 words combined
-    into width-2, width-4, ... words) instead of k shifted ORs, ~4x less
-    VPU/HBM traffic for k=15.
+    into width-2, width-4, ... words) instead of k shifted ORs, ~4x fewer
+    elementwise passes for k=15.
 
     NOTE: the 32-bit hash finalizes the low 32 bits of the canonical k-mer
     (k<=16); the host index build (livefish.index.build_index) hashes with

@@ -3,7 +3,7 @@
 Replaces the reference's strstr scan loop (reference: src/find_telomere.c:44-74)
 with a vectorised shifted-compare: match[i] = all_k(seq[i+k] == motif[k]).
 The host path uses NumPy; the device path (livefish) uses the same formulation
-in JAX where it fuses into a handful of VPU compare/and ops.
+in JAX where XLA fuses it into a handful of compare/and ops.
 """
 
 from typing import List, Tuple

@@ -8,7 +8,9 @@ the last <=W pushed words, and two runs that agree on the last 2W N-free
 bases converge to identical state regardless of earlier history — the
 property the round-3 hybrid's region finisher already relies on and
 fuzz-validates (kernels/sdust_device.py).  This module turns it into a
-DENSE tiling so the DP can run lane-parallel:
+DENSE tiling so the DP can run one chunk per parallel worker (a GPU
+kernel with one thread per chunk is the intended consumer; none exists
+yet, so this runs on the host):
 
   - the sequence splits into fixed `core` spans (core >= 128);
   - each chunk runs the DP independently over
@@ -40,8 +42,7 @@ sdust_chunked_oracle() runs the decomposition with the bit-exact
 sequential DP per chunk — it is both the correctness proof harness
 (tests/test_sdust_chunked.py asserts equality with the global DP on
 eviction-heavy satellites, random, and crafted-N inputs) and the
-reassembly layer the lane-parallel Pallas kernel plugs into
-(kernels/pallas_sdust.py: chunk = lane).
+reassembly layer a parallel DP kernel plugs into (one chunk per thread).
 """
 
 from typing import List, Tuple

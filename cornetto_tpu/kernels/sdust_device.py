@@ -1,4 +1,4 @@
-"""Hybrid device/host SDUST: a TPU candidate filter plus the exact native
+"""Hybrid device/host SDUST: a device candidate filter plus the exact native
 finisher.
 
 The SDUST DP is sequential with data-dependent evictions (SURVEY.md §7 hard

@@ -1,19 +1,10 @@
-"""Device telomere-motif scan kernel.
+"""Device telomere-motif scan kernels.
 
 Batched shifted-compare over 2-bit codes: match[i] = AND_j (codes[i+j] ==
-motif[j]) — k compares + k-1 ANDs per base, pure VPU, fused by XLA into a
-single elementwise kernel.  Used by the livefish path to tag telomeric
-reads on device; the host tool path (tools/telofind.py) uses the memchr
-scan which is already IO-bound.
-
-Speed-of-light: on the 1 B/base minimum-IO model the scan measures
-~103 Gbases/s device-resident = ~16% of the properly-measured 629 GB/s
-memcpy roofline (BENCH_KERNELS.json telo_scan_xla; the round-4 "132% of
-roofline" figure was an artifact of a dispatch-deflated roofline probe
-and is retired).  The gap is the ~log2(m/k) int32 doubling passes of
-the run-length phase; it is still the production path — faster than the
-Pallas twins (kernels.pallas_telo) and far beyond what the IO-bound
-host tools can feed.
+motif[j]) — k compares + k-1 ANDs per base, fused by XLA into a single
+elementwise kernel.  Used by the livefish path to tag telomeric reads on
+device, and by `telofind --backend device` (telo_match_mask_long +
+scan_runs_from_mask), whose rows are byte-identical to the host scan.
 """
 
 import numpy as np
@@ -58,3 +49,45 @@ def telo_run_stats_jax(codes, motif_codes, min_run_bases: int = 24):
     thresh = -(-min_run_bases // k)
     terminal = (run[:, 0] >= thresh)
     return n, longest, terminal
+
+
+_MASK_FNS = {}
+
+
+def telo_match_mask_long(seq_codes: np.ndarray, motif_codes) -> np.ndarray:
+    """Match mask for ONE long sequence (a contig), (len(seq),) bool.  The
+    codes are padded with 4 (never matches) to a power-of-two length of at
+    least 2^16, so a genome's contigs share a few compiled shapes."""
+    import jax
+    import jax.numpy as jnp
+    motif_codes = tuple(int(c) for c in motif_codes)
+    k = len(motif_codes)
+    L = len(seq_codes)
+    if L < k:
+        return np.zeros(L, dtype=bool)
+    n = max(1 << (L + k - 2).bit_length(), 1 << 16)
+    padded = np.full(n, 4, dtype=np.uint8)
+    padded[:L] = seq_codes
+    fn = _MASK_FNS.get(motif_codes)
+    if fn is None:
+        fn = _MASK_FNS[motif_codes] = jax.jit(
+            lambda c: telo_match_mask_jax(c[None, :], motif_codes)[0])
+    return np.asarray(fn(jnp.asarray(padded)))[:L]
+
+
+def scan_runs_from_mask(mask: np.ndarray, k: int):
+    """Reconstruct tools/telofind.scan_runs' greedy walk from a match mask:
+    next occurrence >= cursor, extend in k-steps while matching, resume at
+    end+1 (reference: src/find_telomere.c:44-74).  O(#matches), exact."""
+    idx = np.flatnonzero(mask)
+    pos = 0
+    out = []
+    for q in idx:
+        if q < pos:
+            continue
+        p = int(q)
+        while p < len(mask) and mask[p]:
+            p += k
+        out.append((int(q), p, p - int(q)))
+        pos = p + 1
+    return out

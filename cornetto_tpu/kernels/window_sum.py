@@ -1,14 +1,12 @@
-"""Sliding-window depth statistics, TPU-first.
+"""Sliding-window depth statistics on the device.
 
 This replaces the reference's O(L * W / inc) scalar inner loop
 (reference: src/boringbits_main.c:346-366 sums window_size bases per window,
-~50x genome-size integer adds at the defaults) with an O(L log W) data-parallel
-formulation that XLA maps onto the VPU:
-
-  sliding sums of length W at EVERY base position are built with ~log2(W)
-  shifted adds (binary decomposition of W), entirely in int32 — safe because
-  W * 65535 < 2^31 for any W <= 32767 (the default is 2500) — then window
-  means are a strided gather + integer division.
+~50x genome-size integer adds at the defaults) with one inclusive prefix sum
+per track: each window sum is the difference of two prefix entries, and the
+window means are an integer division.  The prefix sum wraps in int32, but
+every window sum is below 2^31 (W * 65535 < 2^31 for W <= 32767; the
+default is 2500), so the wrapped difference is exact.
 
 Integer semantics match the C exactly: uint16 depths, truncating division by
 the (possibly end-clamped) window length, and the reference's window-count
@@ -27,22 +25,14 @@ _INT32_SAFE_MAX_W = 32767  # W * 65535 < 2^31
 
 
 def resolve_backend(backend: str) -> str:
-    """'auto' picks the jax path only when a real accelerator is attached:
-    on a CPU-only host the device path adds jit compile time plus a second
-    int32 copy of every contig for no throughput gain over the vectorised
-    NumPy twin (measured 2x slower and ~1 GB heavier at 50 Mbp)."""
+    """'auto' picks the jax path only when a GPU is attached: on a
+    CPU-only host the device path adds jit compile time plus a second
+    int32 copy of every contig for no gain over the vectorised NumPy
+    twin."""
     if backend != "auto":
         return backend
-    import os
-    if os.environ.get("CORNETTO_FORCE_CPU") == "1":
-        return "numpy"
-    try:
-        import jax
-        if any(d.platform != "cpu" for d in jax.devices()):
-            return "jax"
-    except Exception:
-        pass
-    return "numpy"
+    from cornetto_tpu.utils.device import gpu_attached
+    return "jax" if gpu_attached() else "numpy"
 
 
 def n_windows(length: int, window_size: int, window_inc: int) -> int:
@@ -111,30 +101,17 @@ def sliding_sum_i32(x, w: int):
 
 
 def _window_sums_strided(x, window_size: int, window_inc: int, nw_max: int):
-    """Window sums at starts j*window_inc for j < nw_max.
-
-    Fast path when window_inc divides window_size (the defaults, 2500/50):
-    two-level decomposition — per-inc block sums (one dense reduce over the
-    full array) followed by a sliding sum of window_size/inc blocks over
-    the inc-times-smaller block array.  O(1) passes over the big array
-    instead of O(log window_size).
-    """
-    import jax
+    """Window sums at starts j*window_inc for j < nw_max, zero-padded past
+    the end of `x`: differences of one wrapping int32 prefix sum (exact,
+    see the module docstring).  On an H100 this is one pass over the track
+    and beat the log2(W) doubling form (sliding_sum_i32) and a two-level
+    block-sum form on a chr1-sized contig."""
     import jax.numpy as jnp
     n = x.shape[0]
-    # NB: a (n/inc, inc)-reshape block-sum two-level path was measured but
-    # the (M, 50) minor-dim layout stalls the TPU compiler.  On TPU the
-    # single-pass Pallas tile kernel is 1.6x the flat doubling form
-    # (kernels.pallas_window); CPU/interpret falls back to doubling.
-    if jax.default_backend() not in ("cpu",) and window_size <= 65536:
-        from cornetto_tpu.kernels.pallas_window import \
-            sliding_window_sum_pallas
-        win = sliding_window_sum_pallas(x, window_size)
-    else:
-        win = sliding_sum_i32(x, window_size)
-    j = jnp.arange(nw_max, dtype=jnp.int32)
-    st_c = jnp.minimum(j * window_inc, n - 1)
-    return win[st_c]
+    cs = jnp.concatenate([jnp.zeros((1,), dtype=jnp.int32),
+                          jnp.cumsum(x, dtype=jnp.int32)])
+    st = jnp.minimum(jnp.arange(nw_max, dtype=jnp.int32) * window_inc, n)
+    return cs[jnp.minimum(st + window_size, n)] - cs[st]
 
 
 def _window_stats_jax_padded(depth_pad, mq_pad, length,
@@ -174,9 +151,6 @@ def window_stats_jax(depth: np.ndarray, mq_depth: np.ndarray,
     length = len(depth)
     nw = n_windows(length, window_size, window_inc)
     padded_len = max(-(-(length + window_size) // pad_bucket), 1) * pad_bucket
-    # keep the padded length a multiple of window_inc so the two-level
-    # block-sum fast path applies
-    padded_len = -(-padded_len // window_inc) * window_inc
     nw_max = n_windows(padded_len - window_size, window_size, window_inc)
     key = (padded_len, window_size, window_inc, nw_max)
     if key not in _jit_cache:

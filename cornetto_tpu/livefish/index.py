@@ -1,6 +1,6 @@
 """Sharded minimizer index of a draft assembly.
 
-The TPU-native replacement for readfish's minimap2 index in the adaptive-
+The device-resident replacement for readfish's minimap2 index in the adaptive-
 sampling loop (SURVEY.md §7 item 7): minimizers of the draft are extracted
 host-side, sorted by hash, and partitioned into E shards by the LOW
 log2(E) hash bits (the expert-parallel axis of the decision mesh).  Each
@@ -39,25 +39,23 @@ class MinimizerIndex:
     # bucketed device layout: bucket b of shard e holds up to `bucket_slots`
     # (K) entries whose hash satisfies ((h >> bucket_shift) & (2^B-1)) == b,
     # where bucket_shift = log2(E) (shard bits below, bucket bits next).
-    # A lookup is then exactly ONE row-gather — the TPU-friendly
-    # alternative to binary search, whose ~20 dependent gather rounds
-    # dominate runtime.  Row layout (2K x int32, K a power of two <= 16):
+    # A lookup is then exactly ONE row-gather instead of a binary
+    # search's ~20 dependent gather rounds.  Row layout (2K x int32, K a power of two <= 16):
     #   words 0..K/2-1   = uint16 fingerprint pairs (fp_s | fp_{s+1}<<16)
     #   words K/2..K-1   = uint16 contig-id pairs   (0xFFFF = empty slot)
     #   words K..2K-1    = int32 ref positions      (sign bit = ambiguous,
     #                                                i.e. multi-occurrence
     #                                                hash — MAPQ<20 analog)
-    # K stays 4 (32-byte rows): measured on v5e, the row-gather has a
-    # hard fast-path cliff past 32-byte rows (K=8 rows cost 6x, K=16 7x
-    # per query — bench_probe2/round-5 microbenches), so capacity comes
-    # from TWO-CHOICE placement instead of wider rows.  With two_choice,
+    # K stays 4 (32-byte rows) and capacity comes from TWO-CHOICE
+    # placement instead of wider rows; the row width against one or two
+    # probes has not been measured on an H100 yet.  With two_choice,
     # every entry may live in its home bucket b1 = (h >> log2E) & (2^B-1)
     # or in b2 = b1 ^ g(fp), g(fp) = (fp * 0x9E3779B1) >> (32 - B);
     # greedy filling (less-full bucket wins, tie -> home) holds overflow
     # drops under 0.5% up to ~72% slot occupancy where single-choice
     # needed <= 27% — about half the directory bytes at 3 Gbp (round-4
     # verdict item 4) — at the cost of a second, independent (and thus
-    # pipelineable) 32-byte gather per lookup.
+    # concurrent) 32-byte gather per lookup.
     # The fingerprint fp = h >> (log2(E) + B) is EXACT, not
     # probabilistic: shard + bucket (+ the placement tag in bit 15 of
     # the stored half under two_choice: a b2-probe match implies

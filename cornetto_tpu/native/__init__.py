@@ -33,9 +33,13 @@ def _build(name: str, source: str, cflags=("-O3",)) -> str:
     if _sanitize():
         cflags = (*cflags, "-fsanitize=address,undefined",
                   "-fno-sanitize-recover=all", "-g")
+    # build under a private name and rename into place, so concurrent
+    # processes (test workers) never dlopen a half-written library
+    tmp_path = "%s.%d.tmp" % (so_path, os.getpid())
     cmd = [cc, *cflags, "-shared", "-fPIC", "-pthread", src_path,
-           "-o", so_path]
+           "-o", tmp_path]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp_path, so_path)
     return so_path
 
 

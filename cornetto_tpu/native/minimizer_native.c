@@ -2,8 +2,8 @@
  *
  * The index build is host-side protocol work (it runs once per assembly
  * iteration, producing the device lookup table the decision engine
- * loads); round-3 did it in NumPy and a 3 Gbp genome cost 1,936 s /
- * 31.9 GB (SCALE_3GBP.json livefish_index).  The three passes here are
+ * loads); in NumPy a 3 Gbp genome cost about half an hour and 32 GB on
+ * a 2-core host.  The three passes here are
  * exact twins of the NumPy reference implementations in
  * kernels/minimizer.py (minimizers_np) and livefish/index.py
  * (the dedup + _build_buckets logic), validated bit-for-bit by

@@ -1,8 +1,8 @@
 /* Native decision-TSV formatter for the livefish streaming path.
  *
  * The Python writer thread formats ~200k rows/s holding the GIL, which
- * starves the dispatch/prefetch threads and caps end-to-end streaming
- * (BENCH_KERNELS.json e2e_stream_decisions).  This kernel formats a whole
+ * starves the dispatch/prefetch threads and caps end-to-end streaming.
+ * This kernel formats a whole
  * batch into one buffer in a single pass; ctypes releases the GIL for the
  * call's duration.
  *

@@ -108,8 +108,8 @@ def run(fasta_path: str, out_dir: str = ".", tmp_dir: str = None,
     # Stream the raw windows to 1_tmp.bed while PRE-MERGING per contig
     # (identical `gap <= 1000` rule as algebra.merge): at 3 Gbp the raw
     # violating-window list is ~42M rows — holding it as Python tuples
-    # cost ~7 GB and dominated create-panel's --low-mem peak (round-5
-    # SCALE_3GBP breakdown).  iter_fun_windows yields each contig's
+    # cost ~7 GB and dominated create-panel's --low-mem peak (a 3 Gbp
+    # run on a CPU host).  iter_fun_windows yields each contig's
     # windows in ascending-start order, so per-contig online merging
     # followed by the global sort+merge of the (tiny) pre-merged list is
     # EXACTLY merge(gnu_sort_bed(raw), 1000): sorting groups contigs

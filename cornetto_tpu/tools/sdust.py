@@ -16,26 +16,10 @@ from cornetto_tpu.native.sdust import sdust
 
 
 def run(fasta_path: str, T: int = 20, W: int = 64, out=None,
-        workers: int = None, backend: str = "host") -> None:
-    """backend "device" runs the lane-parallel Pallas DP per contig
-    (kernels.pallas_sdust — bit-identical; 10x the host DP on dense
-    satellite input, where DUST actually fires); "host" is the native
-    thread-pool path."""
+        workers: int = None) -> None:
+    """The native DP on a thread pool of `workers` (default: all cores)."""
     out = out or sys.stdout
     nw = workers or os.cpu_count() or 1
-    if backend == "device":
-        from cornetto_tpu.kernels.pallas_sdust import sdust_pallas
-
-        def _mask(item):
-            name, seq = item
-            return name, sdust_pallas(seq.encode("latin-1"), T=T, W=W)
-        # serial over contigs: the device is the parallel axis
-        for rec in read_fastx(fasta_path):
-            name, ivals = _mask((rec.name, rec.seq))
-            if ivals:
-                out.write("".join("%s\t%d\t%d\n" % (name, a, b)
-                                  for a, b in ivals))
-        return
 
     def _mask(item):
         name, seq = item
@@ -60,7 +44,6 @@ def run(fasta_path: str, T: int = 20, W: int = 64, out=None,
 def main(argv) -> int:
     from cornetto_tpu.utils.parsing import c_atoi
     W, T = 64, 20
-    backend = "host"
     args = []
     i = 0
     while i < len(argv):
@@ -76,11 +59,19 @@ def main(argv) -> int:
         elif a.startswith("--backend"):
             backend = a.split("=", 1)[1] if "=" in a else argv[i + 1]
             i += 1 if "=" in a else 2
+            if backend != "host":
+                # the SDUST DP has no GPU kernel (a sequential DP with
+                # data-dependent evictions; see ROADMAP.md)
+                sys.stderr.write("Error: sdust --backend %s is not "
+                                 "available: the DP runs on the host only "
+                                 "(--backend host, the default)\n"
+                                 % backend)
+                return 1
         else:
             args.append(a); i += 1
     if not args:
         sys.stderr.write("Usage: sdust [-w %d] [-t %d] "
-                         "[--backend host|device] <in.fa>\n" % (W, T))
+                         "[--backend host] <in.fa>\n" % (W, T))
         return 1
-    run(args[0], T=T, W=W, backend=backend)
+    run(args[0], T=T, W=W)
     return 0

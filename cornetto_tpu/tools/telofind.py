@@ -32,28 +32,25 @@ def scan_runs(seq: bytes, motif: bytes):
         pos += 1
 
 
-def _device_runs(seq: bytes, motif: bytes, interpret: bool):
-    """Device path: the fused Pallas match-mask kernel scans the O(L)
-    bases (kernels.pallas_telo, 77%-of-roofline single HBM pass); the host
-    walks only the sparse match positions — byte-identical rows."""
+def _device_runs(seq: bytes, motif: bytes):
+    """Device path: the XLA match-mask kernel scans the O(L) bases
+    (kernels.telo_scan); the host walks only the sparse match positions —
+    byte-identical rows."""
     from cornetto_tpu.kernels.minimizer import encode_seq
-    from cornetto_tpu.kernels.pallas_telo import (scan_runs_from_mask,
-                                                  telo_match_mask_long)
+    from cornetto_tpu.kernels.telo_scan import (scan_runs_from_mask,
+                                                telo_match_mask_long)
     codes = encode_seq(seq.decode("latin-1"))
     mcodes = encode_seq(motif.decode("latin-1"))
     if (mcodes >= 4).any():
         return scan_runs(seq, motif)  # non-ACGT motif: host scan
-    mask = telo_match_mask_long(codes, tuple(int(c) for c in mcodes),
-                                interpret=interpret)
+    mask = telo_match_mask_long(codes, mcodes)
     return scan_runs_from_mask(mask, len(motif))
 
 
 def run(fasta_path: str, motif: str = "TTAGGG", out=None,
-        backend: str = "host", interpret: bool = False) -> None:
-    """backend="device" scans with the Pallas kernel (CLI: `--backend
-    device`); default is the memchr host scan (IO-bound end-to-end — the
-    device path wins only when codes are already resident, see
-    BENCH_KERNELS.json telo_mask_pallas)."""
+        backend: str = "host") -> None:
+    """backend="device" scans with the XLA kernel (CLI: `--backend
+    device`); the default is the memchr host scan."""
     out = out or sys.stdout
     rmotif = revcomp_motif(motif)
     for rec in read_fastx(fasta_path):
@@ -62,7 +59,7 @@ def run(fasta_path: str, motif: str = "TTAGGG", out=None,
         L = len(seq)
         for strand, m in ((0, motif), (1, rmotif)):
             mb = m.encode("latin-1")
-            runs = (_device_runs(seq, mb, interpret)
+            runs = (_device_runs(seq, mb)
                     if backend == "device" else scan_runs(seq, mb))
             rows = ["%s\t%d\t%d\t%d\t%d\t%d\n"
                     % (rec.name, L, strand, st, end, ln)
@@ -102,9 +99,5 @@ def main(argv) -> int:
                          "[--backend host|device]\n")
         return 1
     motif = pos[1] if len(pos) >= 2 else "TTAGGG"
-    # on the CPU test backend the Pallas kernel runs in interpret mode
-    import jax
-    interpret = jax.default_backend() != "tpu" if backend == "device" \
-        else False
-    run(pos[0], motif, backend=backend, interpret=interpret)
+    run(pos[0], motif, backend=backend)
     return 0

@@ -1,5 +1,5 @@
 """Profiling hooks: the reference exposes a --profile-cpu sectional-timing
-knob (reference: src/cornetto.c:252-272); the TPU equivalent is a
+knob (reference: src/cornetto.c:252-272); the device equivalent is a
 jax.profiler trace around a region, switched by CORNETTO_PROFILE=<dir>."""
 
 import contextlib

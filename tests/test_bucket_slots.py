@@ -1,8 +1,7 @@
 """Two-choice device-table placement (round-4 verdict item 4): the tagged
 two-choice layout must roughly halve the directory bytes/entry at the same
 0.5% overflow bound, while decisions stay exact and the lookup stays
-32-byte row-gathers (the measured v5e gather fast path —
-cornetto_tpu/livefish/index.py layout comment).
+32-byte row-gathers (cornetto_tpu/livefish/index.py layout comment).
 
 Reference for the role: the readfish+minimap2 index the reference protocol
 delegates to (docs/protocol.md) — this table is livefish's on-device

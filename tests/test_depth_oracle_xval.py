@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from tests import _depth_oracle as oracle
+import _depth_oracle as oracle
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BAM = os.path.join(os.path.dirname(HERE), "test_data", "example.bam")

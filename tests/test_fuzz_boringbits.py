@@ -7,7 +7,7 @@ import json
 import pytest
 
 from cornetto_tpu.tools import boringbits
-from tests.conftest import DATA
+from conftest import DATA
 
 FUZZ = DATA / "fuzz"
 MANIFEST = json.load(open(FUZZ / "manifest.json"))

@@ -6,7 +6,7 @@ import json
 
 import pytest
 
-from tests.conftest import DATA
+from conftest import DATA
 
 FUZZ = DATA / "fuzz"
 MANIFEST = json.load(open(FUZZ / "manifest2.json"))

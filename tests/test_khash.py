@@ -5,7 +5,7 @@ test_data/khash_golden.json)."""
 import json
 
 from cornetto_tpu.utils.khash import KHashStr
-from tests.conftest import DATA
+from conftest import DATA
 
 
 def test_iteration_order_matches_c_khash():

@@ -1,16 +1,15 @@
-"""Fused Pallas minimizer-extraction kernel: bit-parity with the XLA path
-(kernels.minimizer.read_minimizers_jax) and with the host index build, plus
-the fingerprinted-lookup decision path on packed reads."""
+"""Minimizer extraction on the device path (XLA): bit-parity with the host
+index build (minimizers_np), plus the fingerprinted-lookup decision path on
+packed reads."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from cornetto_tpu.kernels.minimizer import (encode_seq, pack_reads,
-                                            read_minimizers_jax,
+from cornetto_tpu.kernels.minimizer import (encode_seq, minimizers_np,
+                                            pack_reads, read_minimizers_jax,
                                             unpack_reads_jax)
-from cornetto_tpu.kernels.pallas_extract import extract_minima_pallas
 
 
 @pytest.mark.parametrize("B,L,k,w", [
@@ -20,24 +19,44 @@ from cornetto_tpu.kernels.pallas_extract import extract_minima_pallas
     (8, 200, 15, 12),
 ])
 def test_extract_parity(B, L, k, w):
+    """Packed reads -> device unpack + extraction == the host twin, read by
+    read (window positions, hashes and the N-invalidated windows)."""
     rng = np.random.default_rng(7 + B)
     reads = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
     reads[rng.random((B, L)) < 0.01] = 4      # sprinkle Ns
     packed, nmask = pack_reads(reads)
     codes = unpack_reads_jax(jnp.asarray(packed), jnp.asarray(nmask), L)
-    _, h_ref, v_ref = read_minimizers_jax(codes, k=k, w=w, want_pos=False)
-    h_p, v_p = extract_minima_pallas(jnp.asarray(packed),
-                                     jnp.asarray(nmask), L, k, w,
-                                     interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_ref), np.asarray(h_p))
-    np.testing.assert_array_equal(np.asarray(v_ref), np.asarray(v_p))
+    np.testing.assert_array_equal(np.asarray(codes), reads)
+    pos, h, v = (np.asarray(a) for a in read_minimizers_jax(codes, k=k,
+                                                            w=w))
+    for b in range(B):
+        p_ref, h_ref = minimizers_np(reads[b], k=k, w=w)
+        np.testing.assert_array_equal(h[b][v[b]], h_ref)
+        np.testing.assert_array_equal(pos[b][v[b]], p_ref)
+    # want_pos=False (the decision path) keeps the same minima
+    _, h2, v2 = read_minimizers_jax(codes, k=k, w=w, want_pos=False)
+    np.testing.assert_array_equal(np.asarray(h2), h)
+    np.testing.assert_array_equal(np.asarray(v2), v)
 
 
-def test_decide_packed_pallas_matches_xla():
-    """decision_core_packed(use_pallas) == decision_core on unpacked reads,
-    including the fingerprinted single-gather lookup."""
-    import functools
-    import jax
+@pytest.mark.gpu
+def test_extract_parity_on_gpu():
+    """The same parity at the production batch (16,384 x 450) on the
+    card."""
+    rng = np.random.default_rng(0)
+    reads = rng.integers(0, 4, size=(16384, 450)).astype(np.uint8)
+    packed, nmask = pack_reads(reads)
+    codes = unpack_reads_jax(jnp.asarray(packed), jnp.asarray(nmask), 450)
+    pos, h, v = (np.asarray(a) for a in read_minimizers_jax(codes))
+    for b in range(0, 16384, 997):
+        p_ref, h_ref = minimizers_np(reads[b])
+        np.testing.assert_array_equal(h[b][v[b]], h_ref)
+        np.testing.assert_array_equal(pos[b][v[b]], p_ref)
+
+
+def test_decide_packed_matches_unpacked():
+    """decision_core_packed (2-bit packed reads + N bitmap) ==
+    decision_core on unpacked reads, including the fingerprinted lookup."""
     from cornetto_tpu.livefish.decide import (decision_core,
                                               decision_core_packed)
     from cornetto_tpu.livefish.index import build_index, build_panel_mask
@@ -53,6 +72,7 @@ def test_decide_packed_pallas_matches_xla():
         s = int(rng.integers(0, 30000 - L))
         reads[i] = encode_seq(genome["c1"][s:s + L])
     reads[16:] = rng.integers(0, 4, size=(16, L)).astype(np.uint8)
+    reads[20, 100:110] = 4                    # an interior N run
     packed, nmask = pack_reads(reads)
     kw = dict(k=idx.k, w=idx.w, min_hits=3, bin_size=1000,
               bucket_shift=idx.bucket_shift)
@@ -60,8 +80,7 @@ def test_decide_packed_pallas_matches_xla():
                         jnp.asarray(panel), **kw)
     got = decision_core_packed(jnp.asarray(idx.btable[0]),
                                jnp.asarray(packed), jnp.asarray(nmask),
-                               jnp.asarray(panel), L=L, use_pallas=True,
-                               interpret=True, **kw)
+                               jnp.asarray(panel), L=L, **kw)
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(np.asarray(r), np.asarray(g))
     # sanity: genome reads map, random mostly don't
@@ -69,9 +88,8 @@ def test_decide_packed_pallas_matches_xla():
 
 
 def test_decide_packed_lengths_paths_agree():
-    """The three packed input variants (nmask bitmap / lengths / XLA
-    fallback with lengths) must produce identical decisions for short,
-    N-free reads."""
+    """The packed input variants (N bitmap / 4-byte lengths) produce
+    identical decisions for short, N-free reads."""
     from cornetto_tpu.livefish.decide import decision_core_packed
     from cornetto_tpu.livefish.index import build_index, build_panel_mask
     rng = np.random.default_rng(21)
@@ -90,16 +108,11 @@ def test_decide_packed_lengths_paths_agree():
               bucket_shift=idx.bucket_shift)
     bt, pn = jnp.asarray(idx.btable[0]), jnp.asarray(panel)
     ref = decision_core_packed(bt, jnp.asarray(packed), jnp.asarray(nmask),
-                               pn, use_pallas=True, interpret=True, **kw)
+                               pn, **kw)
     got_len = decision_core_packed(bt, jnp.asarray(packed), None, pn,
-                                   use_pallas=True, interpret=True,
                                    lengths=jnp.asarray(lens), **kw)
-    got_xla = decision_core_packed(bt, jnp.asarray(packed), None, pn,
-                                   use_pallas=False,
-                                   lengths=jnp.asarray(lens), **kw)
-    for r, a, b in zip(ref, got_len, got_xla):
+    for r, a in zip(ref, got_len):
         np.testing.assert_array_equal(np.asarray(r), np.asarray(a))
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(b))
 
 
 def test_fingerprint_lookup_exact():
